@@ -1,11 +1,11 @@
-"""calamity_tpu: TPU-native redundancy-free interferometric self-calibration.
+"""calamity_tpu: redundancy-free interferometric self-calibration in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference CALAMITY package (simultaneous per-antenna gain calibration and
-smooth-basis foreground modeling for 21 cm interferometers), re-designed
-for TPU hardware: dense padded tensors, jit-compiled optimization loops with
-on-device convergence checks, pjit/shard_map scaling over device meshes, and
-fused Pallas kernels for the hot forward/loss path.
+A from-scratch JAX/XLA framework with the capabilities of the reference
+CALAMITY package (simultaneous per-antenna gain calibration and
+smooth-basis foreground modeling for 21 cm interferometers), built for
+accelerators: dense padded tensors, jit-compiled optimization loops with
+on-device convergence checks, and sharding over device meshes. Its target
+device is an NVIDIA GPU.
 """
 
 from . import version

@@ -8,11 +8,13 @@ reference scripts/calibrate_and_model_dpss.py), installable as the
 from __future__ import annotations
 
 from . import calibration
+from .utils import configure_compile_cache
 
 
 def main(argv=None):
     ap = calibration.dpss_fit_argparser()
     args = ap.parse_args(argv)
+    configure_compile_cache()
     calibration.read_calibrate_and_model_dpss(**vars(args))
 
 

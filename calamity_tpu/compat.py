@@ -68,7 +68,7 @@ def tensorize_fg_model_comps_dict(
     Returns (fg_model_comps, corr_inds):
       fg_model_comps: list of (nvecs, ngrps, nbls, nfreqs) arrays — the
         reference's tensor layout (calibration.py:136-146), transposed from
-        the internal MXU-friendly (ngrps, nbls, nfreqs, nvecs) layout.
+        the internal (ngrps, nbls, nfreqs, nvecs) contraction layout.
       corr_inds: list (chunk) of list (group) of (i, j) antenna-index pairs.
 
     ``visdata`` is required (the reference resolves baseline rows lazily;

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import copy as _copy
 
-import h5py
 import numpy as np
 
 from .polarizations import jstr2num
@@ -216,6 +215,8 @@ class CalData:
 
         if os.path.exists(path) and not clobber:
             raise IOError(f"{path} exists and clobber=False")
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "w") as f:
             hdr = f.create_group("Header")
             self._sync_metadata()
@@ -239,6 +240,8 @@ class CalData:
     @classmethod
     def from_calh5(cls, path):
         obj = cls()
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "r") as f:
             hdr = f["Header"]
             for name in _SCALARS:

@@ -19,7 +19,6 @@ from __future__ import annotations
 import copy as _copy
 import os
 
-import h5py
 import numpy as np
 
 from .visdata import _decode
@@ -94,6 +93,8 @@ class FlagWeights:
         """Read a baseline-type, flag-mode UVFlag HDF5 file
         (pyuvdata ``UVFlag.write`` layout)."""
         obj = cls()
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "r") as f:
             hdr = f["Header"]
             ftype = _decode(hdr["type"][()])
@@ -147,6 +148,8 @@ class FlagWeights:
         counts = self._counts
         a1 = np.asarray(self.ant_1_array, dtype=np.int64)
         a2 = np.asarray(self.ant_2_array, dtype=np.int64)
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "w") as f:
             hdr = f.create_group("Header")
             hdr["type"] = np.bytes_("baseline")

@@ -1,6 +1,6 @@
 """Polarization string <-> AIPS integer conventions.
 
-TPU-native reimplementation of the polarization-identifier handling that the
+Standalone reimplementation of the polarization-identifier handling that the
 reference delegates to ``pyuvdata.utils.polstr2num`` / ``polnum2str``
 (used at e.g. reference calibration.py:294, 338, 395). pyuvdata is not a
 dependency of this framework; this module provides the small subset of the

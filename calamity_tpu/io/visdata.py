@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import copy as _copy
 
-import h5py
 import numpy as np
 
 from .polarizations import conj_pol, polnum2str, polstr2num
@@ -149,6 +148,8 @@ class VisData:
         ~10 GiB of host RSS the float32 fit never needs — complex64 halves
         it and the read transient."""
         obj = cls()
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "r") as f:
             hdr = f["Header"]
             for name in _HEADER_SCALARS:
@@ -205,6 +206,8 @@ class VisData:
         if os.path.exists(path) and not clobber:
             raise IOError(f"{path} exists and clobber=False")
         v1 = version == "1.0"
+        import h5py  # optional dependency: only file I/O needs it
+
         with h5py.File(path, "w") as f:
             hdr = f.create_group("Header")
             self._sync_metadata()

@@ -11,7 +11,7 @@ import datetime
 
 import numpy as np
 
-from ..utils import PBARS, echo
+from ..utils import echo, progress
 from . import simple_cov
 from .dft import dft_operator
 from .dpss import dpss_operator
@@ -108,7 +108,7 @@ def yield_pbl_model_comps(
     # eigenval_cutoff only applies to the DPSS basis (reference forwards it
     # to dspec.dpss_operator, modeling.py:294); the DFT basis has no cutoff
     basis_kwargs = {"eigenval_cutoff": eigenval_cutoff} if basis == "dpss" else {}
-    for grpnum in PBARS[notebook_progressbar](range(len(fitting_grps))):
+    for grpnum in progress(range(len(fitting_grps)), notebook_progressbar):
         bllen = np.linalg.norm(vec_bin_centers[grpnum])
         modeling_vectors[fitting_grps[grpnum]] = basis_fn(
             freqs=freqs,
@@ -152,7 +152,7 @@ def yield_mixed_comps(
     """
     operator_cache = {}
     modeling_vectors = {}
-    for grpnum in PBARS[notebook_progressbar](range(len(fitting_grps))):
+    for grpnum in progress(range(len(fitting_grps)), notebook_progressbar):
         fit_grp = fitting_grps[grpnum]
         if isinstance(fit_grp, list):
             fit_grp = tuple(fit_grp)

@@ -20,8 +20,9 @@ driver choice and standardization overhead (~3x at HERA band sizes, and
 this is the host-side cost that scales with the number of distinct
 baseline lengths). For non-uniform sampling we fall back to a dense
 symmetric eigendecomposition. All generation is float64 host-side numpy
-(TPU f64 is emulated/slow; the resulting basis matrices are cast to the
-solve dtype when packed on device).
+(the basis is built once per distinct delay width, outside the descent);
+the resulting basis matrices are cast to the solve dtype when packed on
+device.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..utils import PBARS
+from ..utils import progress
 from .redundancy import get_redundant_grps_data
 
 C_MS = 3e8  # match reference constant (modeling.py:168)
@@ -134,7 +134,7 @@ def get_uv_overlapping_grps_conjugated(
 
     fitting_grps = {}
     grp_labels = {}
-    for k in PBARS[notebook_progressbar](keys_sorted):
+    for k in progress(keys_sorted, notebook_progressbar):
         if k not in grp_labels:
             fitting_grps[k] = [k]
             grp_labels[k] = k

@@ -13,9 +13,9 @@ with u in wavelengths-like units (uvw * f / c) and dnu in GHz-scaled units
 The device path (``use_jax=True``) replaces the reference's TensorFlow-GPU
 branch (simple_cov.py:62-93, tf.linalg.eigh at 171): the matrix build is a
 jit-compiled XLA program and the eigendecomposition uses
-jnp.linalg.eigh. Note f64 on TPU is emulated and slow — basis generation at
-f64 is intended for host CPU jax; the default numpy path is recommended on
-TPU machines (matrices are built once, not in the hot loop).
+jnp.linalg.eigh. The matrices are built once, not in the hot loop, so the
+default host numpy path is the plain choice; which side wins at a given
+matrix size on a given device is not measured here.
 """
 
 from __future__ import annotations

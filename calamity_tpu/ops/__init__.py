@@ -1,5 +1,4 @@
-"""Device-side compute ops: forward model, chi-square loss, batched lstsq,
-and (see kernels) fused Pallas implementations of the hot path."""
+"""Device-side compute ops: forward model, chi-square loss, batched lstsq."""
 
 from .loss import (
     chunked_loss,

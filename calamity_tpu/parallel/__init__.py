@@ -1,7 +1,7 @@
 """Multi-device scaling: mesh construction, shardings, batched fits.
 
 Replaces the reference's single-GPU device placement (calibration.py:
-1741-1753) with jax.sharding over ICI meshes; collectives are inserted by
+1741-1753) with jax.sharding over device meshes; collectives are inserted by
 XLA from the sharding layout (SURVEY.md §2.8).
 """
 

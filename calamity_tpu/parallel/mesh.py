@@ -7,7 +7,7 @@ scaling is first-class (SURVEY.md §2.8, §7): a 2-D logical mesh
     ('data', 'bl')
 
 where 'data' shards the embarrassingly-parallel (time x pol) fit batch and
-'bl' shards baseline chunks across ICI neighbors. Placement rules:
+'bl' shards baseline chunks across devices. Placement rules:
 
     gains   (nbatch, nants, nfreqs)        -> P('data', None, None)  [replicated over bl]
     coeffs  (nbatch, ngrps, nvecs)         -> P('data', 'bl', None)
@@ -15,8 +15,10 @@ where 'data' shards the embarrassingly-parallel (time x pol) fit batch and
     data/wgts (nbatch, ngrps, nbls, nfreqs)-> P('data', 'bl', None, None)
 
 The scalar loss sums over sharded axes, so XLA inserts the psum for the
-loss/grad reduction over 'bl' and the gain-gradient all-reduce rides ICI —
-no hand-written collectives needed.
+loss/grad reduction over 'bl' and the gain-gradient all-reduce, which XLA
+hands to NCCL over NVLink on GPUs — no hand-written collectives needed.
+Every GPU of a host reaches every other at the same rate, so the mesh
+shape follows the algorithm alone.
 """
 
 from __future__ import annotations

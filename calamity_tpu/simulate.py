@@ -209,6 +209,91 @@ def make_redundant_array(
     return make_visdata(antpos, freqs, **kwargs)
 
 
+def make_hera_core(
+    nside=19,
+    spacing=14.6,
+    bllen_max=45.0,
+    nfreqs=1536,
+    ntimes=1,
+    nsrc=50,
+    seed=1,
+    min_dly=10.0,
+    offset=10.0,
+):
+    """HERA-like redundant core whose sky lies exactly in the DPSS basis.
+
+    An ``nside`` x ``nside`` grid at ``spacing`` m (HERA's dish pitch) keeps
+    the baselines no longer than ``bllen_max`` — the short, calibration-
+    relevant spacings. Each time observes its own point-source sky (seed
+    ``seed + t``), simulated once per unique spacing and projected onto that
+    spacing's DPSS operator, so a perfect foreground fit exists and blind
+    self-cal can suppress the residual to rounding level.
+
+    Returns ``(visdata, fg_model_comps_dict)``; the components are the
+    per-baseline DPSS basis the sky was projected onto."""
+    from . import models
+
+    xs, ys = np.meshgrid(np.arange(nside), np.arange(nside))
+    antpos = np.zeros((nside * nside, 3))
+    antpos[:, 0] = xs.ravel() * spacing
+    antpos[:, 1] = ys.ravel() * spacing
+    nants = nside * nside
+    pairs, vecs = [], []
+    for i in range(nants):
+        for j in range(i + 1, nants):
+            v = antpos[j] - antpos[i]
+            if np.linalg.norm(v) <= bllen_max:
+                pairs.append((i, j))
+                vecs.append(v)
+    vecs = np.asarray(vecs)
+    nbls = len(pairs)
+    # exact grid: rounding makes redundant vectors compare equal
+    uniq, inverse = np.unique(np.round(vecs, 6), axis=0, return_inverse=True)
+    inverse = inverse.ravel()
+    freqs = 100e6 + 100e3 * np.arange(nfreqs)
+    lengths = np.linalg.norm(uniq, axis=1)
+    cache = {}
+    operators = [
+        models.yield_dpss_model_comps_bl_grp(
+            lengths[u], freqs, min_dly=min_dly, offset=offset, operator_cache=cache
+        )
+        for u in range(len(uniq))
+    ]
+    data = np.empty((ntimes, nbls, nfreqs), dtype=np.complex128)
+    for t in range(ntimes):
+        vis = point_source_visibilities(uniq, freqs, nsrc=nsrc, seed=seed + t)
+        for u, mat in enumerate(operators):
+            vis[u] = mat @ (mat.T @ vis[u])
+        data[t] = vis[inverse]
+
+    times = 2459122.25 + np.arange(ntimes) * 10.7 / 86400.0
+    nblts = nbls * ntimes
+    uvd = VisData(
+        telescope_name="HERA-CORE-SIM",
+        instrument="HERA-CORE-SIM",
+        latitude=HERA_LAT,
+        longitude=HERA_LON,
+        altitude=HERA_ALT,
+        channel_width=100e3,
+        ant_1_array=np.tile([p[0] for p in pairs], ntimes).astype(np.int64),
+        ant_2_array=np.tile([p[1] for p in pairs], ntimes).astype(np.int64),
+        antenna_numbers=np.arange(nants, dtype=np.int64),
+        antenna_names=[f"ANT{i}" for i in range(nants)],
+        antenna_positions=_enu_to_ecef_rel(antpos, HERA_LAT, HERA_LON),
+        freq_array=freqs[None, :],
+        integration_time=np.full(nblts, 10.7),
+        lst_array=np.zeros(nblts),
+        polarization_array=np.asarray([-5], dtype=np.int64),
+        time_array=np.repeat(times, nbls),
+        uvw_array=np.tile(vecs, (ntimes, 1)),
+        data_array=data.reshape(nblts, 1, nfreqs, 1),
+        flag_array=np.zeros((nblts, 1, nfreqs, 1), dtype=bool),
+        nsample_array=np.ones((nblts, 1, nfreqs, 1), dtype=np.float32),
+    )
+    comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=min_dly, offset=offset)
+    return uvd, comps
+
+
 def make_noise_with_rfi_flags(
     nants=6,
     nfreqs=128,

@@ -4,8 +4,8 @@ The reference has NO mid-fit persistence (SURVEY.md §5): endpoint-only
 writes of model/resid/gains files. Full-array fits (350 ants x 1536
 channels x many times) run for hours, so this framework checkpoints the
 complete optimizer state — (params, opt_state, step, best-so-far, loss
-history) — between jit-compiled segments of the descent, using orbax (the
-TPU-native checkpoint library) with a numpy fallback.
+history) — between jit-compiled segments of the descent, using orbax (JAX's
+checkpoint library) when it is installed, with a numpy fallback.
 
 Checkpoints are written per (pol, time) fit under
 ``{dir}/poltime_{tag}/step_{n}``; resuming an interrupted run restores the
@@ -40,7 +40,7 @@ def _leaf_paths(tree):
 def save_state(path, tree_state: dict, scalar_state: dict):
     """Persist a {name: pytree} dict + a {name: scalar/ndarray} dict.
 
-    Uses orbax (the TPU-native checkpoint library) when importable,
+    Uses orbax (JAX's checkpoint library) when importable,
     numpy+pickle otherwise. Writes atomically: the state goes to a ``.tmp``
     sibling first and is os.rename'd over the final name only after a
     complete save, so a crash mid-save never leaves a

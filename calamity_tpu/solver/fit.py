@@ -4,7 +4,7 @@ convergence checks.
 Reference parity: fit_gains_and_foregrounds (calibration.py:447-738) — same
 semantics (one warm-up step, per-step loss history, |delta loss| < tol early
 stop, optional use_min argmin tracking, freeze_model gain-only mode, "sum"
-regularization) — but redesigned for TPU:
+regularization) — but redesigned for accelerators:
 
 - The ENTIRE loop runs inside one jit as a lax.while_loop; the tolerance
   check happens on device. The reference fetches loss.numpy() every step
@@ -44,7 +44,6 @@ class FitConfig(NamedTuple):
     use_min: bool = False
     freeze_model: bool = False
     regularization: Optional[str] = None
-    use_pallas: bool = False
     remat: bool = False
     # stop (or freeze a batched slice) when the loss has not reached a new
     # minimum for this many recorded steps; 0 disables. The |delta loss| <
@@ -149,8 +148,7 @@ def _fit_segment(cfg: FitConfig, seg_len, chunks, data_r, data_i, wgts, fg_r_con
                     prior_r_sum, prior_i_sum,
                 )
             return chunked_loss(gr, gi, fg_r_const, fg_i_const, chunks, data_r,
-                                data_i, wgts, use_pallas=cfg.use_pallas,
-                                remat=cfg.remat)
+                                data_i, wgts, remat=cfg.remat)
     else:
         def loss_fn(p):
             gr, gi, fr, fi = p
@@ -160,7 +158,7 @@ def _fit_segment(cfg: FitConfig, seg_len, chunks, data_r, data_i, wgts, fg_r_con
                     prior_r_sum, prior_i_sum,
                 )
             return chunked_loss(gr, gi, fr, fi, chunks, data_r, data_i, wgts,
-                                use_pallas=cfg.use_pallas, remat=cfg.remat)
+                                remat=cfg.remat)
 
     vg = jax.value_and_grad(loss_fn)
     big = jnp.asarray(9e99 if dtype == jnp.float64 else 3e38, dtype=dtype)
@@ -350,7 +348,6 @@ def fit_gains_and_foregrounds(
     checkpoint_dir=None,
     checkpoint_every=1000,
     resume=True,
-    use_pallas=False,
     remat=False,
     comps_precision="float32",
     patience=0,
@@ -397,7 +394,6 @@ def fit_gains_and_foregrounds(
         use_min=bool(use_min),
         freeze_model=bool(freeze_model),
         regularization=regularization,
-        use_pallas=bool(use_pallas),
         remat=bool(remat),
         patience=int(patience),
     )
@@ -407,11 +403,6 @@ def fit_gains_and_foregrounds(
     data_r = tuple(data_r)
     data_i = tuple(data_i)
     wgts = tuple(wgts)
-
-    if use_pallas:
-        from ..ops.fused import warn_pallas_fallbacks
-
-        warn_pallas_fallbacks(chunks)
 
     if comps_precision not in ("float32", "bfloat16", "mixed"):
         raise ValueError(

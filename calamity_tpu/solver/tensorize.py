@@ -12,7 +12,7 @@ into a few dense, zero-padded chunk tensors with static shapes:
 
 Per-(time, pol) extraction then becomes a vectorized numpy fancy-index (one
 host->device upload per poltime, no per-baseline loops), and the hot loop
-sees only static-shape dense tensors that XLA can tile onto the MXU.
+sees only static-shape dense tensors that XLA compiles once.
 
 Chunking semantics follow reference chunk_fg_comp_dict_by_nbls
 (calibration.py:30-101): fitting groups are bucketed by their total

@@ -1,25 +1,62 @@
-"""Small shared utilities (logging, progress bars, baseline selection).
+"""Small shared utilities (logging, progress bars, baseline selection,
+compile-cache placement).
 
 Parity targets: reference calamity/utils.py (echo, PBARS, select_baselines).
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
-import tqdm
 
-try:  # pragma: no cover - notebook variant is cosmetic
-    import tqdm.notebook as _tqdm_notebook
+# fixed in-checkout location of JAX's persistent compilation cache when
+# JAX_COMPILATION_CACHE_DIR is unset (the path is part of the cache key, so
+# it must not move between runs)
+DEFAULT_COMPILE_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
 
-    PBARS = {True: _tqdm_notebook.tqdm, False: tqdm.tqdm}
-except Exception:  # pragma: no cover
-    PBARS = {True: tqdm.tqdm, False: tqdm.tqdm}
+
+def progress(iterable, notebook=False):
+    """Progress bar over ``iterable`` (reference PBARS, utils.py:5).
+
+    tqdm is optional: without it the iterable is returned unchanged."""
+    try:
+        if notebook:
+            from tqdm.notebook import tqdm
+        else:
+            from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable)
 
 
 def echo(message, verbose=True):
     """Print-if-verbose (reference utils.py:8-10)."""
     if verbose:
         print(message)
+
+
+def compile_cache_dir():
+    """Directory of JAX's persistent compilation cache for this program:
+    ``JAX_COMPILATION_CACHE_DIR`` when set, else DEFAULT_COMPILE_CACHE_DIR."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        DEFAULT_COMPILE_CACHE_DIR
+    )
+
+
+def configure_compile_cache():
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself; only when it is unset
+    does this point the cache at the fixed in-checkout default. Entry points
+    (CLI, examples, benchmark, smoke test) call this before compiling."""
+    import jax
+
+    path = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def rss_gib():

@@ -24,7 +24,7 @@ foregrounds *inside the horizon wedge* while leaving the EoR power at
 high delays untouched.""")
 
 code("""import jax
-jax.config.update("jax_platforms", "cpu")  # tutorial runs anywhere; drop this line on a TPU host
+jax.config.update("jax_platforms", "cpu")  # tutorial runs anywhere; drop this line on a GPU host
 
 import numpy as np
 import matplotlib.pyplot as plt
@@ -189,14 +189,14 @@ print("EoR window preserved.")""")
 
 md("""## 6. Faster descents: bfloat16 basis storage
 
-On TPU the descent step is bound by streaming the DPSS basis tensors
-from HBM. The DEFAULT `comps_precision="mixed"` schedule runs the bulk of
-the descent against a bfloat16 copy of the basis (~1.7x faster steps at
+At scale the descent step is bound by streaming the DPSS basis tensors
+from device memory. The DEFAULT `comps_precision="mixed"` schedule runs the bulk of
+the descent against a bfloat16 copy of the basis (half the basis bytes at
 array scale) and then polishes in float32 — carrying the optimizer state
 across the switch — so the final residual floor is identical to a
 pure-float32 fit. Here we spell the flag out explicitly (it is what you
 get by default on 32-bit fits); pass `comps_precision="float32"` to opt
-out. See `docs/BF16_COMPS.md` for the measured numbers.""")
+out. See `docs/BF16_COMPS.md`.""")
 
 code("""model_m, resid_m, gains_m, hist_m = calibration.calibrate_and_model_dpss(
     uvdata=uvd_corrupt,
@@ -223,7 +223,7 @@ md("""## 7. Where to go from here
   knobs as this API, shell-ready via `scripts/calibrate_and_model_dpss.py`.
 - **Scale**: `time_parallel=True` batches every (time, pol) fit into one
   compiled descent; pass `mesh=calamity_tpu.parallel.make_mesh()` to
-  shard over a TPU pod slice. See `examples/hera_full_demo.py` for the
+  shard over every GPU of the host. See `examples/hera_full_demo.py` for the
   331-antenna / 54,615-baseline configuration.
 - **Other bases**: `calibrate_and_model_mixed` (multi-baseline
   covariance eigenmodes for redundant arrays), DFT basis via

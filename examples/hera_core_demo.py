@@ -11,10 +11,11 @@ spacing and the per-step HBM traffic is dominated by the data, not the
 This demo builds a 19x19 grid core (361 antennas, 14.6 m spacing — HERA's
 dish pitch), keeps baselines up to ``--bllen_max`` (the calibration-relevant
 short spacings; the same cut the reference CLI exposes as --bllen_max),
-simulates a point-source sky per unique spacing, corrupts with per-antenna
-gains, and runs the blind self-cal on the default backend.
+simulates a point-source sky per unique spacing (simulate.make_hera_core),
+corrupts with per-antenna gains, and runs the blind self-cal on the default
+backend (time_parallel when ``--ntimes`` > 1).
 
-    python examples/hera_core_demo.py                 # TPU if present
+    python examples/hera_core_demo.py                 # GPU if present
     python examples/hera_core_demo.py --backend cpu --nside 8 --nfreqs 256
 """
 
@@ -32,6 +33,7 @@ def main():
     ap.add_argument("--bllen_max", type=float, default=45.0)
     ap.add_argument("--nfreqs", type=int, default=1536)
     ap.add_argument("--nsrc", type=int, default=50)
+    ap.add_argument("--ntimes", type=int, default=1)
     ap.add_argument("--maxsteps", type=int, default=3000)
     ap.add_argument("--tol", type=float, default=1e-11)
     ap.add_argument("--patience", type=int, default=500,
@@ -52,86 +54,27 @@ def main():
     if args.backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
 
-    from calamity_tpu import cal_utils, calibration, models, simulate
-    from calamity_tpu.io.visdata import VisData
+    from calamity_tpu import cal_utils, calibration, simulate
+    from calamity_tpu.utils import configure_compile_cache
 
+    configure_compile_cache()
     rng = np.random.default_rng(11)
 
     def stage(label):
         print(f"[{time.strftime('%H:%M:%S')}] {label}", file=sys.stderr, flush=True)
 
-    # --- grid core, short-baseline cut ------------------------------------
-    n = args.nside
-    xs, ys = np.meshgrid(np.arange(n), np.arange(n))
-    antpos = np.zeros((n * n, 3))
-    antpos[:, 0] = xs.ravel() * args.spacing
-    antpos[:, 1] = ys.ravel() * args.spacing
-    nants = n * n
-    pairs = []
-    vecs = []
-    for i in range(nants):
-        for j in range(i + 1, nants):
-            v = antpos[j] - antpos[i]
-            if np.linalg.norm(v) <= args.bllen_max:
-                pairs.append((i, j))
-                vecs.append(v)
-    vecs = np.asarray(vecs)
-    nbls = len(pairs)
-    # unique spacings (exact grid -> exact match)
-    uniq, inverse = np.unique(np.round(vecs, 6), axis=0, return_inverse=True)
-    stage(f"{nants} antennas, {nbls} baselines <= {args.bllen_max} m, "
-          f"{len(uniq)} unique spacings")
-
-    # --- sky per unique spacing, broadcast to baselines --------------------
-    stage("simulating sky per unique spacing")
+    # --- grid core, short-baseline cut; sky per unique spacing projected
+    # onto its DPSS operator (simulate.make_hera_core) --------------------
+    stage("simulating the grid core")
     t0 = time.time()
-    freqs = 100e6 + 100e3 * np.arange(args.nfreqs)
-    vis_uniq = simulate.point_source_visibilities(uniq, freqs, nsrc=args.nsrc, seed=1)
-    data = vis_uniq[inverse]  # (nbls, nfreqs)
-    t_sim = time.time() - t0
-
-    # --- build the VisData --------------------------------------------------
-    uvd = VisData(
-        telescope_name="HERA-CORE-SIM",
-        instrument="HERA-CORE-SIM",
-        latitude=simulate.HERA_LAT,
-        longitude=simulate.HERA_LON,
-        altitude=simulate.HERA_ALT,
-        channel_width=100e3,
-        ant_1_array=np.asarray([p[0] for p in pairs], dtype=np.int64),
-        ant_2_array=np.asarray([p[1] for p in pairs], dtype=np.int64),
-        antenna_numbers=np.arange(nants, dtype=np.int64),
-        antenna_names=[f"ANT{i}" for i in range(nants)],
-        antenna_positions=simulate._enu_to_ecef_rel(antpos, simulate.HERA_LAT,
-                                                    simulate.HERA_LON),
-        freq_array=freqs[None, :],
-        integration_time=np.full(nbls, 10.7),
-        lst_array=np.zeros(nbls),
-        polarization_array=np.asarray([-5], dtype=np.int64),
-        time_array=np.full(nbls, 2459122.25),
-        uvw_array=vecs,
-        data_array=data[:, None, :, None].astype(np.complex128),
-        flag_array=np.zeros((nbls, 1, args.nfreqs, 1), dtype=bool),
-        nsample_array=np.ones((nbls, 1, args.nfreqs, 1), dtype=np.float32),
+    uvd, comps = simulate.make_hera_core(
+        nside=args.nside, spacing=args.spacing, bllen_max=args.bllen_max,
+        nfreqs=args.nfreqs, ntimes=args.ntimes, nsrc=args.nsrc,
     )
-
-    # --- basis (per unique length), projection per unique spacing ----------
-    stage("DPSS operators per unique spacing")
-    t0 = time.time()
-    comps = models.yield_pbl_dpss_model_comps(uvd, min_dly=10.0, offset=10.0)
-    t_basis = time.time() - t0
-    stage("projecting per unique spacing")
-    t0 = time.time()
-    cache = {}
-    lengths = np.linalg.norm(uniq, axis=1)
-    for u in range(len(uniq)):
-        mat = models.yield_dpss_model_comps_bl_grp(
-            lengths[u], freqs, min_dly=10.0, offset=10.0, operator_cache=cache
-        )
-        vis_uniq[u] = mat @ (mat.T @ vis_uniq[u])
-    data = vis_uniq[inverse]
-    uvd.data_array = data[:, None, :, None].astype(np.complex128)
-    t_proj = time.time() - t0
+    t_sim = time.time() - t0
+    nants, nbls = uvd.Nants_data, uvd.Nbls
+    stage(f"{nants} antennas, {nbls} baselines <= {args.bllen_max} m, "
+          f"{uvd.Ntimes} times")
 
     # --- corrupt + fit -------------------------------------------------------
     truth = cal_utils.blank_uvcal_from_uvdata(uvd)
@@ -157,16 +100,15 @@ def main():
         correct_model=True,
         model_regularization="post_hoc",
         nvec_bucketing=True,
+        time_parallel=args.ntimes > 1,
     )
     t_fit = time.time() - t0
 
     rms = lambda x: np.sqrt(np.mean(np.abs(x) ** 2))
     nsteps = len(info[0][0]["loss"])
     print(f"\n=== HERA-core demo: {nants} ants / {nbls} baselines / "
-          f"{args.nfreqs} channels / {len(uniq)} unique spacings ===")
-    print(f"simulate  : {t_sim:7.1f}s")
-    print(f"basis     : {t_basis:7.1f}s")
-    print(f"project   : {t_proj:7.1f}s")
+          f"{args.nfreqs} channels / {uvd.Ntimes} times ===")
+    print(f"simulate  : {t_sim:7.1f}s (sky, basis and projection)")
     print(f"fit       : {t_fit:7.1f}s ({nsteps} steps, "
           f"{1e3 * t_fit / max(nsteps, 1):.2f} ms/step incl. compile+packing)")
     print(f"loss      : {info[0][0]['loss'][0]:.3e} -> {info[0][0]['loss'][-1]:.3e}")

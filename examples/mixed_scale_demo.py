@@ -16,8 +16,8 @@ simple_cov.py:100-182; SURVEY.md section 3.3). Two modes:
              --probe_nbls 8,16,32,64,128
          The eigh scaling ladder: for each Nbl, build the (Nbl*Nf)^2
          covariance and time host numpy f64 eigh vs jax eigh on the
-         default backend (f32; f64 optional — TPU f64 is emulated and
-         slow). Prints the table DESIGN.md "Mixed mode at scale" records.
+         default backend (f32; f64 optional). Prints the eigh timing
+         table of DESIGN.md "Mixed mode at scale".
 """
 
 import argparse
@@ -242,7 +242,7 @@ def main():
     ap.add_argument("--grp_size_threshold", type=int, default=5)
     ap.add_argument("--red_tol_freq", type=float, default=0.5)
     ap.add_argument("--use_jax", action="store_true",
-                    help="device covariance build + eigh (f32 on TPU)")
+                    help="device covariance build + eigh")
     ap.add_argument("--probe", action="store_true", help="eigh scaling ladder")
     ap.add_argument("--probe_nbls", default="8,16,32,64")
     ap.add_argument("--jax_f64", action="store_true")
@@ -254,6 +254,9 @@ def main():
 
     if args.backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    from calamity_tpu.utils import configure_compile_cache
+
+    configure_compile_cache()
     if args.probe:
         run_probe(args, jax)
     else:

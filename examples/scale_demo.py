@@ -5,7 +5,7 @@ The headline metric (BASELINE.md): wall-clock to convergence of a full-array,
 full-band joint gain + foreground fit. This script builds an N-antenna
 pseudo-random 2-D array observing a point-source sky at 1536 channels
 (HERA bandwidth), corrupts it with per-antenna gains, and runs the blind
-self-cal on the default backend (TPU when present), reporting stage timings
+self-cal on the default backend (GPU when present), reporting stage timings
 and convergence quality.
 
     python examples/scale_demo.py --nants 48          # ~1128 baselines
@@ -37,7 +37,6 @@ def main():
                     choices=["float32", "bfloat16", "mixed"],
                     help="basis storage precision for the descent "
                          "(docs/BF16_COMPS.md)")
-    ap.add_argument("--use_pallas", action="store_true")
     ap.add_argument("--repeat_fit", action="store_true",
                     help="run the fit twice; the second run reuses the compiled "
                          "program, isolating steady-state step time")
@@ -49,6 +48,10 @@ def main():
 
     if args.backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
+
+    from calamity_tpu.utils import configure_compile_cache
+
+    configure_compile_cache()
 
     from calamity_tpu import cal_utils, calibration, models, simulate
     from tests.test_calibration import project_onto_dpss
@@ -116,7 +119,6 @@ def main():
         correct_model=True,
         model_regularization="post_hoc",
         nvec_bucketing=True,
-        use_pallas=args.use_pallas,
     )
     t_fit = time.time() - t0
     t_fit2 = None
@@ -136,7 +138,6 @@ def main():
             correct_model=True,
             model_regularization="post_hoc",
             nvec_bucketing=True,
-            use_pallas=args.use_pallas,
         )
         t_fit2 = time.time() - t0
 

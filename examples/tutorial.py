@@ -10,7 +10,7 @@ residual preserves the EoR-level signal.
 
 Run on CPU:
     python examples/tutorial.py
-Run on a TPU machine (default backend):
+Run on a GPU machine (default backend):
     python examples/tutorial.py --backend default
 """
 
@@ -36,6 +36,10 @@ def main():
 
     if args.backend == "cpu":
         jax.config.update("jax_platforms", "cpu")
+
+    from calamity_tpu.utils import configure_compile_cache
+
+    configure_compile_cache()
 
     from calamity_tpu import cal_utils, calibration, simulate
 

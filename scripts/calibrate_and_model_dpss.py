@@ -12,8 +12,10 @@ def main():
         dpss_fit_argparser,
         read_calibrate_and_model_dpss,
     )
+    from calamity_tpu.utils import configure_compile_cache
 
     args = dpss_fit_argparser().parse_args()
+    configure_compile_cache()
     read_calibrate_and_model_dpss(**vars(args))
 
 

@@ -2,41 +2,33 @@
 # Full-scale endurance run: 331 ants / 54,615 bls / 1536 ch / 8 poltimes,
 # shared-batched packing, mixed comps precision, checkpointed + supervised.
 #
-# Ingredients (docs/DESIGN.md "Multi-time HBM budget" + "Endurance status"):
-#   --loss_block_ngrps 2048     the measured 13.3-GiB-of-15.75 HBM plan
-#                               (+~1.0 GiB for the patience/use_min argmin
-#                               carry still fits UNFLAGGED; flagged runs
-#                               carry the full bf16 weights cube and need
-#                               --loss_block_ngrps 512 — which also halves
-#                               their step cost; DESIGN.md "Round-5
-#                               flagged campaign")
-#   --steps_per_execution 40    relay execution watchdog: the synthetic
-#                               same-footprint ladder (fullscale_segment_probe)
-#                               ran 100-step/~50 s executions fine and lost the
-#                               TPU worker on a 500-step/~250 s one, so single
-#                               executions stay well under a minute (bf16
-#                               ~0.5 s/step, f32 ~0.85 s/step)
-#   --checkpoint_every 500      bounds lost work to ~4 min of device time
-#   --patience 500              measured-best stopping (docs/DESIGN.md
-#                               "Patience stopping"): freeze a slice after 500
-#                               steps without a new loss minimum and return the
-#                               tracked argmin (use_min) instead of burning the
+# Ingredients (docs/DESIGN.md):
+#   --loss_block_ngrps 2048     bounds the loss's activation transients
+#                               (flagged runs carry the full bf16 weights
+#                               cube and use a smaller block)
+#   --steps_per_execution 40    keeps single device executions short
+#   --checkpoint_every 500      bounds lost work after a crash
+#   --patience 500              freeze a slice after 500 steps without a
+#                               new loss minimum and return the tracked
+#                               argmin (use_min) instead of burning the
 #                               budget orbiting the plateau
-#   --prep_cache                the ~hour of host prep runs once; supervised
-#                               relaunches reload in minutes
-#   calamity_tpu.supervisor     classifies worker crashes as transient, waits
-#                               for the device probe, relaunches; the child
-#                               resumes from the latest checkpoint
+#   --prep_cache                the host prep runs once; supervised
+#                               relaunches reload it
+#   calamity_tpu.supervisor     classifies device failures as transient,
+#                               waits for the device probe, relaunches; the
+#                               child resumes from the latest checkpoint
+#
+# Device times for this configuration on a GPU are not measured yet. The
+# compile cache is JAX_COMPILATION_CACHE_DIR when set, else <repo>/.jax_cache.
 #
 # Usage:  bash scripts/run_endurance.sh [prep_cache_dir] [checkpoint_dir]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-PREP=${1:-/tmp/prep_cache_nt8}
-CKPT=${2:-/tmp/ck_endurance}
+PREP=${1:-runs/prep_cache_nt8}
+CKPT=${2:-runs/ck_endurance}
 
 export PYTHONPATH="$PWD:${PYTHONPATH:-}"
-export JAX_COMPILATION_CACHE_DIR=${JAX_COMPILATION_CACHE_DIR:-/tmp/jax_cache}
 
 # fill the prep cache first (host-only; safe while the device is busy/down)
 python examples/hera_full_demo.py --prep_only --prep_cache "$PREP" \

@@ -648,10 +648,6 @@ def test_wgts_precision_bfloat16(sky_model_projected, gains):
         calibration.calibrate_and_model_dpss(
             uvdata=uvd, wgts_precision="float16", **common
         )
-    with pytest.raises(ValueError, match="use_pallas"):
-        calibration.calibrate_and_model_dpss(
-            uvdata=uvd, wgts_precision="bfloat16", use_pallas=True, **common
-        )
 
 
 def test_comps_precision_invalid_raises(sky_model_projected, gains):

@@ -5,10 +5,10 @@ The heal path (parallel.batched.BatchedSegmentPlan._apply_required_layouts)
 regex-parses argument names and required layouts out of jax's pre-execution
 runtime layout check ValueError — the only authoritative source when
 ``compiled.input_formats`` misreports an entry layout (observed for bf16
-leaves at full-array scale; docs/DESIGN.md "The auto-layout entry saga").
+leaves at full-array scale; docs/DESIGN.md "Auto-layout entry plans").
 These tests feed CANNED error text so the parse, the entry_formats patch,
 the _put_format transfer contract and the heal->retry loop are all covered
-on CPU without a relay backend.
+on CPU.
 
 The guard (check_initial_loss + batched_initial_losses/host_batched_losses)
 is the automatic detector for the scrambled-cube class: a compiled relayout
@@ -411,8 +411,8 @@ def test_guard_catches_scrambled_cube_time_parallel(monkeypatch, corrupted_multi
 def test_guard_catches_scrambled_cube_scan(monkeypatch, corrupted_multitime):
     """Same detection on the warm-started time scan, whose guard reference
     is computed on the HOST (cubes upload straight into plan layouts).
-    The scan defaults to the plain-jit path since round 5 (nbatch=1 needs
-    no auto-layout plan and the relay corrupts nbatch=1 entry relayouts);
+    The scan defaults to the plain-jit path (nbatch=1 needs no
+    auto-layout plan, and nbatch=1 entry relayouts once scrambled a cube);
     CALAMITY_SCAN_PLANS=1 re-enables the guarded plan path under test."""
     monkeypatch.setenv("CALAMITY_SCAN_PLANS", "1")
     _scramble_put_entries(monkeypatch, index_to_scramble=1)

@@ -11,7 +11,7 @@ from calamity_tpu import supervisor
 
 def test_transient_classification():
     assert supervisor.is_transient_device_failure(
-        "jax.errors.JaxRuntimeError: UNAVAILABLE: TPU worker process "
+        "jax.errors.JaxRuntimeError: UNAVAILABLE: device worker process "
         "crashed or restarted."
     )
     assert supervisor.is_transient_device_failure(
@@ -34,7 +34,7 @@ def test_run_supervised_restarts_until_success():
     def fake_run(argv):
         attempts.append(list(argv))
         if len(attempts) < 3:
-            return 1, "UNAVAILABLE: TPU worker process crashed or restarted"
+            return 1, "UNAVAILABLE: device worker process crashed or restarted"
         return 0, "done"
 
     code = supervisor.run_supervised(
@@ -54,7 +54,7 @@ def test_run_supervised_restarts_until_success():
 def test_resource_exhausted_retried_exactly_once():
     """A device-HBM ResourceExhausted is retried ONCE (worker restarts can
     leave stale HBM residue); a second identical failure surfaces as real."""
-    oom = "jax.errors.JaxRuntimeError: RESOURCE_EXHAUSTED: TPU backend error"
+    oom = "jax.errors.JaxRuntimeError: RESOURCE_EXHAUSTED: device backend error"
     attempts = []
 
     def fail_twice(argv):
@@ -148,7 +148,7 @@ def test_end_to_end_subprocess_resume(tmp_path):
         open(p, "w").write(str(n + 1))
         if n + 1 < 3:
             print("step", n + 1)
-            sys.stderr.write("UNAVAILABLE: TPU worker process crashed or restarted\\n")
+            sys.stderr.write("UNAVAILABLE: device worker process crashed or restarted\\n")
             sys.exit(1)
         print("converged")
     """))
@@ -174,7 +174,7 @@ def test_classification_window_is_the_tail():
         early_noise + padding + real_error
     )
     assert supervisor.is_transient_device_failure(
-        padding + "UNAVAILABLE: TPU worker process crashed or restarted\n"
+        padding + "UNAVAILABLE: device worker process crashed or restarted\n"
     )
 
 
